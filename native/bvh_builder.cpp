@@ -3,7 +3,7 @@
 // The C++ counterpart of the reference's native acceleration layer
 // (LuisaCompute builds hardware/embree BVHs in C++; akari_cpp_ext holds the
 // reference's other native pieces). The Python/numpy builder in
-// akari_render_tpu/accel/bvh.py is the fallback; this one handles
+// akari_render/accel/bvh.py is the fallback; this one handles
 // multi-million-triangle scenes at load time.
 //
 // C ABI (ctypes): see native/__init__.py. All outputs are caller-readable

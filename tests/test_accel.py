@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from akari_render_tpu.accel.bvh import _build_bvh_py, build_bvh, traverse
-from akari_render_tpu.accel.cluster import build_clusters, intersect_clusters
-from akari_render_tpu.accel.trace import intersect_brute_force, occlude_brute_force
+from akari_render.accel.bvh import _build_bvh_py, build_bvh, traverse
+from akari_render.accel.cluster import build_clusters, intersect_clusters
+from akari_render.accel.trace import intersect_brute_force, occlude_brute_force
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +40,7 @@ def _ground_truth(soup, rays):
 class TestBvh:
     def test_native_matches_python_builder(self, soup):
         v0, e1, e2 = soup
-        from akari_render_tpu.native import get_lib
+        from akari_render.native import get_lib
 
         if get_lib() is None:
             pytest.skip("native builder unavailable")
@@ -102,9 +102,9 @@ class TestSceneWithAccel:
     def test_cbox_renders_identically_with_clusters(self, cbox_path):
         import os
 
-        from akari_render_tpu.config import PTConfig
-        from akari_render_tpu.integrators.pt import render_pt
-        from akari_render_tpu.scene import load_scene
+        from akari_render.config import PTConfig
+        from akari_render.integrators.pt import render_pt
+        from akari_render.scene import load_scene
 
         s1 = load_scene(cbox_path, width=16, height=16)
         img1, _ = render_pt(s1, PTConfig(spp=4, max_depth=3, spp_per_pass=4))
@@ -118,73 +118,63 @@ class TestSceneWithAccel:
         np.testing.assert_allclose(img1, img2, atol=1e-4)
 
 
-class TestPallasChunked:
-    """Pallas kernel (interpret mode) vs the XLA brute-force reference,
-    including the multi-chunk triangle grid used for mid-size scenes.
+class TestBruteTriton:
+    """The brute-force Pallas kernel (Triton route), run in interpret mode,
+    against the XLA brute force; the scene's brute tier on the CPU takes
+    the XLA branch of the platform decision bit for bit."""
 
-    TRI_CHUNK is shrunk to 64 here: interpret mode executes the statically
-    unrolled triangle loop op-by-op, so the production 512-wide chunk takes
-    tens of minutes on the CPU host. The chunked-grid logic (init-on-first-
-    chunk, VMEM-resident best-hit state, global ids) is identical."""
-
-    @pytest.fixture(autouse=True)
-    def _small_chunk(self, monkeypatch):
-        from akari_render_tpu.accel import pallas_intersect as pi
-
-        monkeypatch.setattr(pi, "TRI_CHUNK", 64)
-
-    def _soup(self, rng, T):
-        v0 = rng.uniform(-3, 3, (T, 3)).astype(np.float32)
-        e1 = rng.uniform(-0.8, 0.8, (T, 3)).astype(np.float32)
-        e2 = rng.uniform(-0.8, 0.8, (T, 3)).astype(np.float32)
-        return jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2)
-
-    @pytest.mark.parametrize("T", [36, 200])
-    def test_matches_brute_force(self, T):
-        from akari_render_tpu.accel.pallas_intersect import intersect_pallas, pack_tris
-        from akari_render_tpu.accel.trace import intersect_brute_force
-
-        rng = np.random.default_rng(3)
-        v0, e1, e2 = self._soup(rng, T)
-        n = 256
+    def _case(self, seed, T, n, tmax):
+        rng = np.random.default_rng(seed)
+        v0 = jnp.asarray(rng.uniform(-3, 3, (T, 3)), jnp.float32)
+        e1 = jnp.asarray(rng.uniform(-0.8, 0.8, (T, 3)), jnp.float32)
+        e2 = jnp.asarray(rng.uniform(-0.8, 0.8, (T, 3)), jnp.float32)
         o = jnp.asarray(rng.uniform(-4, 4, (n, 3)), jnp.float32)
         d = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
         d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        tmin = jnp.zeros((n,))
-        tmax = jnp.full((n,), 1e20)
-        ex0 = jnp.asarray(rng.integers(0, T, n), jnp.int32)
+        ex0 = jnp.asarray(rng.integers(-1, T, n), jnp.int32)
+        return (o, d, jnp.zeros((n,)), jnp.full((n,), tmax), v0, e1, e2, ex0)
 
-        ref = intersect_brute_force(o, d, tmin, tmax, v0, e1, e2, ex0, None)
-        tri = pack_tris(v0, e1, e2)
-        got = intersect_pallas(tri, o, d, tmin, tmax, ex0, None, interpret=True)
+    @pytest.mark.parametrize("T,n,tmax", [(36, 256, 1e20), (200, 300, 1e20),
+                                          (45, 77, 3.0)])
+    def test_closest_matches_brute_force(self, T, n, tmax):
+        from akari_render.accel.brute_triton import intersect_brute_triton
+
+        o, d, tmin, tm, v0, e1, e2, ex0 = self._case(T, T, n, tmax)
+        ref = intersect_brute_force(o, d, tmin, tm, v0, e1, e2, ex0)
+        got = intersect_brute_triton(o, d, tmin, tm, v0, e1, e2, ex0,
+                                     interpret=True)
         np.testing.assert_array_equal(np.asarray(got.valid), np.asarray(ref.valid))
-        np.testing.assert_array_equal(
-            np.asarray(got.tri_id)[np.asarray(ref.valid)],
-            np.asarray(ref.tri_id)[np.asarray(ref.valid)],
-        )
-        np.testing.assert_allclose(
-            np.asarray(got.t)[np.asarray(ref.valid)],
-            np.asarray(ref.t)[np.asarray(ref.valid)],
-            rtol=1e-5,
-        )
+        np.testing.assert_array_equal(np.asarray(got.tri_id), np.asarray(ref.tri_id))
+        np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t), rtol=1e-5)
+        np.testing.assert_allclose(np.asarray(got.bary), np.asarray(ref.bary),
+                                   rtol=1e-5, atol=1e-6)
 
-    def test_any_hit_chunked(self):
-        from akari_render_tpu.accel.pallas_intersect import intersect_pallas, pack_tris
-        from akari_render_tpu.accel.trace import intersect_brute_force
+    @pytest.mark.parametrize("T", [36, 150])
+    def test_any_hit_matches_brute_force(self, T):
+        from akari_render.accel.brute_triton import intersect_brute_triton
 
-        rng = np.random.default_rng(5)
-        v0, e1, e2 = self._soup(rng, 150)
-        n = 256
-        o = jnp.asarray(rng.uniform(-4, 4, (n, 3)), jnp.float32)
-        d = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        tmin = jnp.zeros((n,))
-        tmax = jnp.full((n,), 4.0)  # finite: shadow-ray style
-        ref = intersect_brute_force(o, d, tmin, tmax, v0, e1, e2, None, None)
-        occ_ref = np.asarray(ref.valid & (ref.t < 4.0))
-        tri = pack_tris(v0, e1, e2)
-        occ = intersect_pallas(tri, o, d, tmin, tmax, None, None, any_hit=True, interpret=True)
-        np.testing.assert_array_equal(np.asarray(occ), occ_ref)
+        o, d, tmin, tm, v0, e1, e2, ex0 = self._case(7 * T, T, 200, 4.0)
+        ref = occlude_brute_force(o, d, tmin, tm, v0, e1, e2, ex0)
+        got = intersect_brute_triton(o, d, tmin, tm, v0, e1, e2, ex0,
+                                     any_hit=True, interpret=True)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+    @pytest.mark.parametrize("any_hit", [False, True])
+    def test_cpu_takes_the_xla_branch(self, any_hit):
+        import jax
+
+        from akari_render.accel.brute_triton import intersect_brute, occlude_brute
+
+        args = self._case(3, 60, 128, 5.0)
+        if any_hit:
+            got = jax.jit(occlude_brute)(*args)
+            ref = jax.jit(occlude_brute_force)(*args)
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+        else:
+            got = jax.jit(intersect_brute)(*args)
+            ref = jax.jit(intersect_brute_force)(*args)
+            for a, b in zip(got, ref):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 class TestSuperclusters:
@@ -193,7 +183,7 @@ class TestSuperclusters:
 
     @pytest.fixture(autouse=True)
     def _small_groups(self, monkeypatch):
-        from akari_render_tpu.accel import cluster as cm
+        from akari_render.accel import cluster as cm
 
         monkeypatch.setattr(cm, "SUPER_GROUP", 8)
         monkeypatch.setattr(cm, "SUPER_MIN_CLUSTERS", 16)

@@ -1,4 +1,4 @@
-"""BSDF statistical tests — the TPU port of the reference's akari-test
+"""BSDF statistical tests — the port of the reference's akari-test
 harness (crates/akari_api/src/bin/akari_test.rs:16-439): chi-square tests of
 `sample_wi` histograms against the claimed pdf, plus energy and reciprocity
 checks, for each BSDF family.
@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from akari_render_tpu.core.math import Frame
-from akari_render_tpu.core.samplers import IndependentSampler
-from akari_render_tpu.svm.microfacet import TrowbridgeReitz, fr_dielectric
-from akari_render_tpu.svm.surface import (
+from akari_render.core.math import Frame
+from akari_render.core.samplers import IndependentSampler
+from akari_render.svm.microfacet import TrowbridgeReitz, fr_dielectric
+from akari_render.svm.surface import (
     BsdfMixture,
     DiffuseBsdf,
     MicrofacetReflection,
@@ -49,7 +49,7 @@ def _expected_counts(surface, wo, n_total, sub=8):
     (akari_test.rs:70-112: adaptive_simpson_2d per bin, phi outer / theta
     inner, integrand pdf*sin(theta), eps=1e-6, max_depth=6). `sub` scales
     the refinement depth for sharp lobes (kept for call compatibility)."""
-    from akari_render_tpu.core.integration import adaptive_simpson_2d_batch
+    from akari_render.core.integration import adaptive_simpson_2d_batch
 
     t_h = np.pi / THETA_BINS
     p_h = 2 * np.pi / PHI_BINS
@@ -247,7 +247,7 @@ class TestFusedPrincipled:
     eval.build_principled_surface; exact same math must come out."""
 
     def _make_pair(self, rng, n, **overrides):
-        from akari_render_tpu.svm.eval import build_principled_surface
+        from akari_render.svm.eval import build_principled_surface
 
         def arr(lo, hi):
             return jnp.asarray(rng.uniform(lo, hi, n), jnp.float32)
@@ -349,7 +349,7 @@ class TestPlasticChi2:
     sample_wi histogram must match the mixture pdf claimed by evaluate."""
 
     def _make(self, rough=0.3, kd=(0.6, 0.3, 0.2), eta=1.5, sigma_a=None):
-        from akari_render_tpu.svm.surface import PlasticBsdf
+        from akari_render.svm.surface import PlasticBsdf
 
         n = ()
         kd_a = jnp.asarray(kd, jnp.float32)[None]  # broadcastable [1, 3]
@@ -394,7 +394,7 @@ class TestPlasticChi2:
     def test_internal_scattering_brightens_vs_naive(self):
         """The kd/(1-kd*Fdr) compensation must brighten the substrate over a
         plain (1-Fi)(1-Fo)/eta^2-scaled Lambert term for high-albedo kd."""
-        from akari_render_tpu.svm.surface import fr_dielectric_integral
+        from akari_render.svm.surface import fr_dielectric_integral
 
         eta = jnp.full((1,), 1.5)
         fdr = float(fr_dielectric_integral(eta)[0])
@@ -413,7 +413,7 @@ class TestStaticLobeElimination:
     def _make(self, static_zero):
         import jax.numpy as jnp
 
-        from akari_render_tpu.svm.eval import build_principled_surface
+        from akari_render.svm.eval import build_principled_surface
 
         n = 512
         rng = np.random.default_rng(5)

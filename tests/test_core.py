@@ -4,13 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from akari_render_tpu.core import math as m
-from akari_render_tpu.core import sampling as smp
-from akari_render_tpu.core.distribution import AliasTable, sample_and_remap, resample_with_f64
-from akari_render_tpu.core.film import Film, add_samples, add_splats, develop
-from akari_render_tpu.core.image_io import read_exr, write_exr
-from akari_render_tpu.core.pcg import Pcg32, U64, pcg32_next, u64_add, u64_mul
-from akari_render_tpu.core.samplers import IndependentSampler
+from akari_render.core import math as m
+from akari_render.core import sampling as smp
+from akari_render.core.distribution import AliasTable, sample_and_remap, resample_with_f64
+from akari_render.core.film import Film, add_samples, add_splats, develop
+from akari_render.core.image_io import read_exr, write_exr
+from akari_render.core.pcg import Pcg32, U64, pcg32_next, u64_add, u64_mul
+from akari_render.core.samplers import IndependentSampler
+from conftest import CBOX_SCENE
 
 
 class TestU64:
@@ -218,7 +219,7 @@ class TestGGXInversion:
     def _roundtrip(self, alpha, rng_np, n=8192):
         import jax.numpy as jnp
 
-        from akari_render_tpu.svm.microfacet import TrowbridgeReitz
+        from akari_render.svm.microfacet import TrowbridgeReitz
 
         dist = TrowbridgeReitz(
             jnp.broadcast_to(jnp.asarray(alpha, jnp.float32), (n, 2)),
@@ -252,7 +253,7 @@ class TestGGXInversion:
         the replay path, not just |u| closeness)."""
         import jax.numpy as jnp
 
-        from akari_render_tpu.svm.microfacet import TrowbridgeReitz
+        from akari_render.svm.microfacet import TrowbridgeReitz
 
         n = 4096
         dist = TrowbridgeReitz(
@@ -274,7 +275,7 @@ class TestPerlinNoise:
 
     @pytest.mark.parametrize("dim", [1, 2, 3, 4])
     def test_range_and_statistics(self, dim, rng_np):
-        from akari_render_tpu.svm.texture import perlin_noise
+        from akari_render.svm.texture import perlin_noise
 
         p = jnp.asarray(rng_np.uniform(-50, 50, (100_000, dim)).astype(np.float32))
         v = np.asarray(perlin_noise(p, dim=dim))
@@ -287,7 +288,7 @@ class TestPerlinNoise:
     @pytest.mark.parametrize("dim", [1, 2, 3, 4])
     def test_continuity(self, dim, rng_np):
         """Gradient noise is continuous: tiny steps give tiny changes."""
-        from akari_render_tpu.svm.texture import perlin_noise
+        from akari_render.svm.texture import perlin_noise
 
         p = jnp.asarray(rng_np.uniform(-10, 10, (4096, dim)).astype(np.float32))
         eps = 1e-4
@@ -297,7 +298,7 @@ class TestPerlinNoise:
 
     def test_zero_at_lattice(self):
         """Perlin gradient noise is exactly 0.5 (signed 0) at lattice points."""
-        from akari_render_tpu.svm.texture import perlin_noise
+        from akari_render.svm.texture import perlin_noise
 
         for dim in (1, 2, 3, 4):
             p = jnp.asarray(np.mgrid[0:4].astype(np.float32))[:, None]
@@ -307,7 +308,7 @@ class TestPerlinNoise:
 
     def test_hash_matches_jenkins_reference(self):
         """hash_uint2 spot-check vs an independent lookup3 evaluation."""
-        from akari_render_tpu.svm.texture import _hash_uint2
+        from akari_render.svm.texture import _hash_uint2
 
         def rot(x, k):
             return ((x << k) | (x >> (32 - k))) & 0xFFFFFFFF
@@ -335,7 +336,7 @@ class TestPmj02:
     carry (sampler/mod.rs:329-701; SURVEY §2 row 3a)."""
 
     def test_02_property_exhaustive(self):
-        from akari_render_tpu.core.pmj02 import generate_pmj02, is_02_prefix
+        from akari_render.core.pmj02 import generate_pmj02, is_02_prefix
 
         pts = generate_pmj02(1024, seed=7)
         for k in range(11):
@@ -344,7 +345,7 @@ class TestPmj02:
     def test_sampler_stratification_and_decorrelation(self):
         import jax.numpy as jnp
 
-        from akari_render_tpu.core.lds import Pmj02Sampler
+        from akari_render.core.lds import Pmj02Sampler
 
         n_spp = 256
         pix = jnp.zeros((n_spp,), jnp.uint32)  # one pixel, all spp
@@ -364,11 +365,11 @@ class TestPmj02:
         assert not np.allclose(u, np.asarray(ua))
 
     def test_render_integration(self):
-        from akari_render_tpu.config import PTConfig
-        from akari_render_tpu.integrators.pt import render_pt
-        from akari_render_tpu.scene import load_scene
+        from akari_render.config import PTConfig
+        from akari_render.integrators.pt import render_pt
+        from akari_render.scene import load_scene
 
-        sc = load_scene("/root/reference/scenes/cbox/scene.json", width=16, height=16)
+        sc = load_scene(CBOX_SCENE, width=16, height=16)
 
         class T:
             sampler = {"type": "pmj02bn"}
@@ -386,7 +387,7 @@ class TestAdaptiveSimpson:
     def test_polynomial_exact(self):
         import numpy as np
 
-        from akari_render_tpu.core.integration import adaptive_simpson_batch
+        from akari_render.core.integration import adaptive_simpson_batch
 
         # Simpson is exact for cubics; adaptivity must not break that
         res = adaptive_simpson_batch(
@@ -399,7 +400,7 @@ class TestAdaptiveSimpson:
     def test_sharp_peak_converges(self):
         import numpy as np
 
-        from akari_render_tpu.core.integration import (
+        from akari_render.core.integration import (
             adaptive_simpson_batch,
             adaptive_simpson_2d_batch,
         )
@@ -429,7 +430,7 @@ def test_dielectric_ior_presets_match_reference_table():
     (crates/akari_data/src/ior.rs GLASS_BK7_ETA): our Sellmeier evaluation
     must reproduce the reference's (nm, eta) samples — same Schott source
     data — plus handbook sanity values for the other presets."""
-    from akari_render_tpu.core.ior import PRESETS, eta, eta_table
+    from akari_render.core.ior import PRESETS, eta, eta_table
 
     ref_pairs = [(300.0, 1.5527702635739), (520.0, 1.5201596882463),
                  (630.0, 1.5151856452759), (916.0, 1.5087426727363)]
@@ -453,7 +454,7 @@ class TestHashSampler:
         cheap-traffic alternative to the reference-parity Pcg32 stream."""
         import jax.numpy as jnp
 
-        from akari_render_tpu.core.lds import make_sampler
+        from akari_render.core.lds import make_sampler
 
         s = make_sampler({"type": "hash"}, jnp.arange(4096, dtype=jnp.uint32),
                          jnp.uint32(3), 7)
@@ -476,11 +477,11 @@ class TestHashSampler:
         noise level of the budget."""
         import os
 
-        from akari_render_tpu.config import PTConfig
-        from akari_render_tpu.integrators.pt import render_pt
-        from akari_render_tpu.scene import load_scene
+        from akari_render.config import PTConfig
+        from akari_render.integrators.pt import render_pt
+        from akari_render.scene import load_scene
 
-        scene = load_scene("/root/reference/scenes/cbox/scene.json",
+        scene = load_scene(CBOX_SCENE,
                            width=32, height=32)
         img1, _ = render_pt(scene, PTConfig(spp=64, max_depth=4, spp_per_pass=64))
         os.environ["AKR_RNG"] = "hash"

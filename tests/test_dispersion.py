@@ -30,7 +30,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 @pytest.fixture(scope="module")
 def scenes(tmp_path_factory):
-    from akari_render_tpu.core.spectral import ensure_rgb2spec_table
+    from akari_render.core.spectral import ensure_rgb2spec_table
 
     if ensure_rgb2spec_table() is None:
         pytest.skip("native rgb2spec optimizer unavailable")
@@ -45,14 +45,14 @@ def scenes(tmp_path_factory):
 
 
 def _load(path, res=48):
-    from akari_render_tpu.scene import load_scene
+    from akari_render.scene import load_scene
 
     return load_scene(str(path / "scene.json"), width=res, height=res)
 
 
 def _render(scene, color, spp=16):
-    from akari_render_tpu.config import PTConfig
-    from akari_render_tpu.integrators.pt import render_pt
+    from akari_render.config import PTConfig
+    from akari_render.integrators.pt import render_pt
 
     cfg = PTConfig(spp=spp, max_depth=5, spp_per_pass=spp, color=color)
     img, _ = render_pt(scene, cfg)
@@ -68,7 +68,7 @@ def _saturation(img, thresh=0.5):
 
 
 def test_dispersive_kind_flag(scenes):
-    from akari_render_tpu.svm.eval import kind_is_dispersive
+    from akari_render.svm.eval import kind_is_dispersive
 
     sc = _load(scenes / "disp")
     assert sc.has_dispersion
@@ -81,7 +81,7 @@ def test_dispersive_kind_flag(scenes):
 def test_closure_ior_depends_on_wavelength(scenes):
     """The dispersive kind's sampled transmission direction moves with the
     hero wavelength; the zero-B kind's does not."""
-    from akari_render_tpu.svm.eval import kind_is_dispersive
+    from akari_render.svm.eval import kind_is_dispersive
 
     for name, expect_move in (("disp", True), ("b0", False)):
         sc = _load(scenes / name)

@@ -396,9 +396,9 @@ def test_export_load_render_roundtrip(exporter_mod, tmp_path):
     exporter_mod.SceneExporter(str(out)).export()
     assert (out / "scene.json").exists()
 
-    from akari_render_tpu.config import PTConfig
-    from akari_render_tpu.integrators.pt import render_pt
-    from akari_render_tpu.scene import load_scene
+    from akari_render.config import PTConfig
+    from akari_render.integrators.pt import render_pt
+    from akari_render.scene import load_scene
 
     scene = load_scene(str(out / "scene.json"))
     assert scene.arrays.lights.num_lights >= 1  # emission was detected

@@ -11,13 +11,13 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
-from akari_render_tpu.scene import load_scene
+from akari_render.scene import load_scene
 
 
 def _build_instanced_scene(tmp_path, n_inst=5):
     import make_test_scene as M
 
-    from akari_render_tpu.scenegraph.write import SceneBuilder
+    from akari_render.scenegraph.write import SceneBuilder
 
     b = SceneBuilder()
     s = 4.0
@@ -123,8 +123,8 @@ class TestInstanced:
         )
 
     def test_render_matches_flattened(self, scene_pair):
-        from akari_render_tpu.config import PTConfig
-        from akari_render_tpu.integrators.pt import render_pt
+        from akari_render.config import PTConfig
+        from akari_render.integrators.pt import render_pt
 
         s_inst, s_flat = scene_pair
         cfg = PTConfig(spp=8, max_depth=3, spp_per_pass=8)
@@ -142,96 +142,3 @@ class TestInstanced:
         h2 = s_inst.intersect(o, d, tmin, tmax, exclude0=ex)
         hit_same = np.asarray(h2.valid & (h2.tri_id == h1.tri_id) & h1.valid)
         assert not hit_same.any()
-
-
-class TestUnifiedPairs:
-    """Unified flat+instanced candidate list (build_unified_clusters) swept by
-    accel/pairs must agree with the two-level traversal exactly."""
-
-    def test_unified_matches_two_level(self, scene_pair):
-        from akari_render_tpu.accel.instanced import intersect_instanced
-        from akari_render_tpu.accel.pairs import intersect_pairs
-
-        s_inst, s_flat = scene_pair
-        u = s_inst.arrays.unified
-        assert u is not None and u.xf is not None and u.tri_row is not None
-        o, d, tmin, tmax = _rays()
-        # this scene's flat part is below the cluster tier, so the unified
-        # list holds the instance clusters only -> compare against the
-        # two-level instanced traversal (same coverage, same GLOBAL ids)
-        h_u = intersect_pairs(u, o, d, tmin, tmax, interpret=True, maxc=6)
-        h_i = intersect_instanced(s_inst.arrays.instanced, o, d, tmin, tmax)
-        np.testing.assert_array_equal(np.asarray(h_u.valid), np.asarray(h_i.valid))
-        v = np.asarray(h_i.valid)
-        np.testing.assert_allclose(
-            np.asarray(h_u.t)[v], np.asarray(h_i.t)[v], rtol=1e-4, atol=1e-5
-        )
-        np.testing.assert_array_equal(
-            np.asarray(h_u.tri_id)[v], np.asarray(h_i.tri_id)[v]
-        )
-        # interactions through the global-virtual ids must match too
-        si_u = s_inst.surface_interaction(jnp.maximum(h_u.tri_id, 0), h_u.bary)
-        si_i = s_inst.surface_interaction(jnp.maximum(h_i.tri_id, 0), h_i.bary)
-        for key in ("p", "ng", "uv"):
-            np.testing.assert_allclose(
-                np.asarray(si_u[key])[v], np.asarray(si_i[key])[v],
-                rtol=2e-3, atol=2e-4, err_msg=key,
-            )
-
-    def test_unified_occlusion_and_exclusion(self, scene_pair):
-        from akari_render_tpu.accel.pairs import intersect_pairs
-
-        s_inst, s_flat = scene_pair
-        u = s_inst.arrays.unified
-        o, d, tmin, tmax = _rays()
-        from akari_render_tpu.accel.instanced import intersect_instanced
-
-        occ_u = intersect_pairs(
-            u, o, d, tmin, jnp.full_like(tmax, 6.0), any_hit=True,
-            interpret=True, maxc=6,
-        )
-        occ_i = intersect_instanced(
-            s_inst.arrays.instanced, o, d, tmin, jnp.full_like(tmax, 6.0),
-            any_hit=True,
-        )
-        np.testing.assert_array_equal(np.asarray(occ_u), np.asarray(occ_i))
-        # global-virtual exclusion ids must suppress re-hits through the sweep
-        h1 = intersect_pairs(u, o, d, tmin, tmax, interpret=True, maxc=6)
-        ex = jnp.where(h1.valid, h1.tri_id, -1)
-        h2 = intersect_pairs(u, o, d, tmin, tmax, exclude0=ex, interpret=True, maxc=6)
-        hit_same = np.asarray(h2.valid & (h2.tri_id == h1.tri_id) & h1.valid)
-        assert not hit_same.any()
-
-    def test_unified_includes_flat_clusters(self, tmp_path_factory):
-        """With the flat part forced into the cluster tier, the unified list
-        covers flat + instanced geometry in ONE sweep — must equal the
-        fully-flattened scene's closest hits."""
-        from akari_render_tpu.accel.pairs import intersect_pairs
-
-        path = _build_instanced_scene(tmp_path_factory.mktemp("instu"))
-        os.environ["AKR_INSTANCE_MIN_TRIS"] = "64"
-        os.environ["AKR_FORCE_BVH"] = "1"
-        try:
-            os.environ["AKR_INSTANCING"] = "1"
-            s_inst = load_scene(path)
-            os.environ["AKR_INSTANCING"] = "0"
-            s_flat = load_scene(path)
-        finally:
-            for k in ("AKR_INSTANCING", "AKR_INSTANCE_MIN_TRIS", "AKR_FORCE_BVH"):
-                os.environ.pop(k, None)
-        u = s_inst.arrays.unified
-        assert s_inst.arrays.bvh is not None and u is not None
-        o, d, tmin, tmax = _rays()
-        h_u = intersect_pairs(u, o, d, tmin, tmax, interpret=True, maxc=6)
-        h_f = s_flat.intersect(o, d, tmin, tmax)
-        np.testing.assert_array_equal(np.asarray(h_u.valid), np.asarray(h_f.valid))
-        v = np.asarray(h_f.valid)
-        np.testing.assert_allclose(
-            np.asarray(h_u.t)[v], np.asarray(h_f.t)[v], rtol=1e-4, atol=1e-5
-        )
-        occ_u = intersect_pairs(
-            u, o, d, tmin, jnp.full_like(tmax, 6.0), any_hit=True,
-            interpret=True, maxc=6,
-        )
-        occ_f = s_flat.occlude(o, d, tmin, jnp.full_like(tmax, 6.0))
-        np.testing.assert_array_equal(np.asarray(occ_u), np.asarray(occ_f))

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from akari_render_tpu.lights import (
+from akari_render.lights import (
     light_point_attrs,
     sample_light_point,
     sample_light_point_ex,
 )
-from akari_render_tpu.scene import load_scene
+from akari_render.scene import load_scene
 
 
 @pytest.fixture(scope="module")
@@ -56,13 +56,13 @@ def test_sample_light_point_delegates(cbox):
 
 
 def test_render_bit_identical_to_fallback(cbox_path, monkeypatch):
-    from akari_render_tpu.config import PTConfig
-    from akari_render_tpu.integrators.pt import render_pt
+    from akari_render.config import PTConfig
+    from akari_render.integrators.pt import render_pt
 
     def render(flag):
         # the flag is read ONCE at module import (ADVICE r4) — tests flip
         # the module constant, not the env, and must clear jit caches
-        from akari_render_tpu.integrators import common
+        from akari_render.integrators import common
 
         monkeypatch.setattr(common, "_COMPACT_NEE", flag == "1")
         jax.clear_caches()

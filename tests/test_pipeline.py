@@ -5,6 +5,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from conftest import CBOX_SCENE, CLASSROOM_SCENE
 
 pytestmark = pytest.mark.slow  # see pytest.ini: statistical / E2E tier
 
@@ -19,7 +20,7 @@ class TestSceneWrite:
         assert path.exists()
         doc = json.loads(path.read_text())
         assert set(doc["buffers"]) == {"Scene"}  # compacted
-        from akari_render_tpu.scene import load_scene
+        from akari_render.scene import load_scene
 
         s = load_scene(path, width=16, height=16)
         assert s.num_tris > 4000
@@ -31,9 +32,9 @@ class TestSceneWrite:
         import make_test_scene
 
         path = make_test_scene.build(tmp_path / "matbox")
-        from akari_render_tpu.config import PTConfig
-        from akari_render_tpu.integrators.pt import render_pt
-        from akari_render_tpu.scene import load_scene
+        from akari_render.config import PTConfig
+        from akari_render.integrators.pt import render_pt
+        from akari_render.scene import load_scene
 
         s = load_scene(path, width=24, height=24)
         img, _ = render_pt(s, PTConfig(spp=4, max_depth=4, spp_per_pass=4))
@@ -41,7 +42,7 @@ class TestSceneWrite:
         assert img.mean() > 0.05  # lit scene
 
     def test_api_commands(self, tmp_path):
-        from akari_render_tpu.api import SceneImportApi
+        from akari_render.api import SceneImportApi
 
         api = SceneImportApi()
         api.execute({"type": "init"})
@@ -91,7 +92,7 @@ class TestSceneWrite:
             }
         )
         out = api.execute({"type": "write_scene", "data": {"out_dir": str(tmp_path / "s")}})
-        from akari_render_tpu.scene import load_scene
+        from akari_render.scene import load_scene
 
         s = load_scene(out["path"])
         assert s.num_tris == 1
@@ -101,8 +102,8 @@ class TestCheckpoint:
     def test_roundtrip(self, tmp_path):
         import jax.numpy as jnp
 
-        from akari_render_tpu.checkpoint import load_checkpoint, save_checkpoint
-        from akari_render_tpu.core.film import Film
+        from akari_render.checkpoint import load_checkpoint, save_checkpoint
+        from akari_render.core.film import Film
 
         film = Film(
             accum=jnp.ones((16, 3)), splat=jnp.zeros((16, 3)), weight=jnp.full((16,), 2.0)
@@ -115,14 +116,14 @@ class TestCheckpoint:
         np.testing.assert_array_equal(extra["rng"], np.arange(4))
 
     def test_missing_returns_none(self, tmp_path):
-        from akari_render_tpu.checkpoint import load_checkpoint
+        from akari_render.checkpoint import load_checkpoint
 
         assert load_checkpoint(tmp_path / "nope.npz") is None
 
     def test_pt_resume_continues(self, cbox_path, tmp_path):
-        from akari_render_tpu.config import PTConfig
-        from akari_render_tpu.integrators.pt import render_pt
-        from akari_render_tpu.scene import load_scene
+        from akari_render.config import PTConfig
+        from akari_render.integrators.pt import render_pt
+        from akari_render.scene import load_scene
 
         s = load_scene(cbox_path, width=8, height=8)
         ck = tmp_path / "r.npz"
@@ -138,9 +139,9 @@ class TestCheckpoint:
         """Kill-and-resume equality: chains checkpointed at half the
         mutation budget continue to the full budget bit-identically
         (SURVEY.md §5 film + chain state)."""
-        from akari_render_tpu.config import MCMCConfig
-        from akari_render_tpu.integrators.mcmc import render_mcmc
-        from akari_render_tpu.scene import load_scene
+        from akari_render.config import MCMCConfig
+        from akari_render.integrators.mcmc import render_mcmc
+        from akari_render.scene import load_scene
 
         s = load_scene(cbox_path, width=8, height=8)
         ck = tmp_path / "m.npz"
@@ -159,9 +160,9 @@ class TestCheckpoint:
         np.testing.assert_allclose(img_resumed, img_full, atol=1e-5)
 
     def test_gpt_resume_continues(self, cbox_path, tmp_path):
-        from akari_render_tpu.config import GPTConfig
-        from akari_render_tpu.integrators.gpt import render_gpt
-        from akari_render_tpu.scene import load_scene
+        from akari_render.config import GPTConfig
+        from akari_render.integrators.gpt import render_gpt
+        from akari_render.scene import load_scene
 
         s = load_scene(cbox_path, width=8, height=8)
         ck = tmp_path / "g.npz"
@@ -178,7 +179,7 @@ class TestCheckpoint:
 
 class TestStats:
     def test_stats_format(self, tmp_path):
-        from akari_render_tpu.stats import DispatchProfiler, RenderSession, RenderStats
+        from akari_render.stats import DispatchProfiler, RenderSession, RenderStats
 
         st = RenderStats()
         st.record(1.5, 16, "a.exr")
@@ -201,7 +202,7 @@ class TestDisplayServer:
     def test_serves_frames(self):
         import urllib.request
 
-        from akari_render_tpu.gui import DisplayServer
+        from akari_render.gui import DisplayServer
 
         srv = DisplayServer()
         try:
@@ -223,14 +224,14 @@ class TestDisplayServer:
             srv.close()
 
     def test_render_pushes_frames(self, tmp_path):
-        from akari_render_tpu.config import PTConfig
-        from akari_render_tpu.integrators.pt import render_pt
-        from akari_render_tpu.scene import load_scene
-        from akari_render_tpu.stats import RenderSession
+        from akari_render.config import PTConfig
+        from akari_render.integrators.pt import render_pt
+        from akari_render.scene import load_scene
+        from akari_render.stats import RenderSession
 
         frames = []
         sess = RenderSession(display=lambda im: frames.append(im.shape))
-        s = load_scene("/root/reference/scenes/cbox/scene.json", width=8, height=8)
+        s = load_scene(CBOX_SCENE, width=8, height=8)
         render_pt(s, PTConfig(spp=2, max_depth=2, spp_per_pass=1), session=sess)
         assert frames and frames[-1] == (8, 8, 3)
 
@@ -240,7 +241,7 @@ def test_render_task_multi(tmp_path):
     list renders each config in sequence against the same scene."""
     import json as _json
 
-    from akari_render_tpu.cli import main
+    from akari_render.cli import main
 
     multi = [
         {"method": {"type": "pt", "spp": 1, "max_depth": 2},
@@ -250,33 +251,33 @@ def test_render_task_multi(tmp_path):
     ]
     mp = tmp_path / "multi.json"
     mp.write_text(_json.dumps(multi))
-    main(["-s", "/root/reference/scenes/cbox/scene.json", "-m", str(mp), "--res", "8"])
+    main(["-s", CBOX_SCENE, "-m", str(mp), "--res", "8"])
     assert (tmp_path / "a.exr").exists() and (tmp_path / "b.exr").exists()
 
 
-def test_lane_cap_respects_smem_budget():
-    """The pair sweep's scalar-prefetch tables (tri_ix + xf_ix + cent,
-    ~B*MAXC*12 bytes) must fit the 1 MB scoped-SMEM cap with headroom —
-    classroom 1080p hit a permanent TPU compile OOM at 2 MB before
-    max_wavefront_lanes learned the constraint (round 4)."""
-    import os
+@pytest.mark.parametrize("scene_path", [CBOX_SCENE, CLASSROOM_SCENE])
+def test_lane_cap_bounds_cull_buffers(scene_path, monkeypatch):
+    """max_wavefront_lanes keeps the cluster cull's [lanes, min(K,
+    CULL_CHUNK)] f32 buffers at or under 2^26 elements on cluster-tier
+    scenes, and gives brute-tier scenes the flat 2^22-lane cap."""
+    from akari_render.accel.cluster import CULL_CHUNK
+    from akari_render.integrators.pt import max_wavefront_lanes
+    from akari_render.scene import load_scene
 
-    from akari_render_tpu.accel.pairs import BLOCK, MAXC
-    from akari_render_tpu.integrators.pt import max_wavefront_lanes
-    from akari_render_tpu.scene import load_scene
-
-    if os.environ.get("AKR_MAX_LANES"):
-        import pytest
-
-        pytest.skip("explicit lane override in env")
-    scene = load_scene("scenes/classroom/scene.json", width=256, height=256)
-    if scene.arrays.unified is None and scene.arrays.bvh is None:
-        import pytest
-
-        pytest.skip("classroom not on the pairs tier in this config")
+    monkeypatch.delenv("AKR_MAX_LANES", raising=False)
+    scene = load_scene(scene_path, width=64, height=64)
     cap = max_wavefront_lanes(scene)
-    b = -(-cap // BLOCK)
-    assert b * MAXC * 12 <= 524_288, (cap, b, MAXC)
+    a = scene.arrays
+    if a.bvh is None and a.instanced is None:
+        assert cap == 1 << 22
+        return
+    k = 0
+    if a.bvh is not None:
+        k = max(k, min(a.bvh["clusters"].num_clusters, CULL_CHUNK))
+    if a.instanced is not None:
+        k = max(k, min(int(a.instanced.clusters.cbmin.shape[0]), CULL_CHUNK))
+    assert cap >= 1 << 16
+    assert cap * k <= max(1 << 26, (1 << 16) * k)
 
 
 def test_split_compacted_pass_bit_exact(monkeypatch):
@@ -288,12 +289,12 @@ def test_split_compacted_pass_bit_exact(monkeypatch):
     rows (idempotent scatter)."""
     import numpy as np
 
-    from akari_render_tpu.config import PTConfig
-    from akari_render_tpu.integrators.pt import render_pt
-    from akari_render_tpu.scene import load_scene
+    from akari_render.config import PTConfig
+    from akari_render.integrators.pt import render_pt
+    from akari_render.scene import load_scene
 
     scene = load_scene(
-        "/root/reference/scenes/cbox/scene.json", width=48, height=48
+        CBOX_SCENE, width=48, height=48
     )
     cfg = PTConfig(spp=6, max_depth=7, spp_per_pass=6)
     monkeypatch.delenv("AKR_SPLIT_DEPTH", raising=False)

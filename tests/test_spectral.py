@@ -13,13 +13,14 @@ import dataclasses
 
 import numpy as np
 import pytest
+from conftest import CBOX_SCENE
 
 jnp = pytest.importorskip("jax.numpy")
 
 
 @pytest.fixture(scope="module")
 def table():
-    from akari_render_tpu.core.spectral import ensure_rgb2spec_table
+    from akari_render.core.spectral import ensure_rgb2spec_table
 
     tab = ensure_rgb2spec_table()
     if tab is None:
@@ -30,7 +31,7 @@ def table():
 def test_sensor_whitepoint():
     """A flat-reflectance D65 emitter is sRGB white (the sensor's own
     normalization, independent of the uplift table)."""
-    from akari_render_tpu.core.spectral import illuminant_d65, spectral_to_rgb
+    from akari_render.core.spectral import illuminant_d65, spectral_to_rgb
 
     lam = jnp.linspace(360.0, 830.0, 4701)[None, :]
     L = illuminant_d65(lam)
@@ -41,7 +42,7 @@ def test_sensor_whitepoint():
 
 def test_uplift_round_trip(table):
     """uplift -> spectrum * D65 -> CIE sensor reproduces the input RGB."""
-    from akari_render_tpu.core.spectral import (
+    from akari_render.core.spectral import (
         eval_reflectance, illuminant_d65, spectral_to_rgb, uplift_unbounded,
     )
 
@@ -67,7 +68,7 @@ def test_uplift_round_trip(table):
 
 
 def test_wavelength_sample_pdf():
-    from akari_render_tpu.core.spectral import sample_wavelengths
+    from akari_render.core.spectral import sample_wavelengths
 
     sw = sample_wavelengths(jnp.array([0.0, 0.3, 0.999]))
     lam = np.asarray(sw.lambdas)
@@ -88,12 +89,12 @@ def test_spectral_cbox_matches_rgb(table):
     noise + uplift bias, both well under the seed-to-seed noise floor
     (measured: spectral-vs-rgb MSE 0.0048 < seed-vs-seed MSE 0.0081 at
     64^2/64spp)."""
-    from akari_render_tpu.config import PTConfig
-    from akari_render_tpu.integrators.pt import render_pt
-    from akari_render_tpu.scene import load_scene
+    from akari_render.config import PTConfig
+    from akari_render.integrators.pt import render_pt
+    from akari_render.scene import load_scene
 
     scene = load_scene(
-        "/root/reference/scenes/cbox/scene.json", width=48, height=48
+        CBOX_SCENE, width=48, height=48
     )
     cfg = PTConfig(spp=48, max_depth=5, spp_per_pass=48)
     img_rgb, _ = render_pt(scene, cfg)
@@ -109,7 +110,7 @@ def test_spectral_cbox_matches_rgb(table):
 
 
 def test_spectral_config_parsing():
-    from akari_render_tpu.config import PTConfig
+    from akari_render.config import PTConfig
 
     assert PTConfig.from_json({"color": "spectral"}).color == "spectral"
     assert PTConfig.from_json({"color": {"type": "spectral"}}).color == "spectral"

@@ -4,16 +4,17 @@ path tracer. Per-item radiance uses identical sampler streams keyed by
 import numpy as np
 import pytest
 
-from akari_render_tpu.config import PTConfig
-from akari_render_tpu.integrators.pt import render_pt
-from akari_render_tpu.integrators.wavefront import render_pt_wavefront
-from akari_render_tpu.scene import load_scene
+from akari_render.config import PTConfig
+from akari_render.integrators.pt import render_pt
+from akari_render.integrators.wavefront import render_pt_wavefront
+from akari_render.scene import load_scene
+from conftest import CBOX_SCENE
 
 
 @pytest.fixture(scope="module")
 def cbox():
     return load_scene(
-        "/root/reference/scenes/cbox/scene.json", width=32, height=32
+        CBOX_SCENE, width=32, height=32
     )
 
 
@@ -48,7 +49,7 @@ def test_wavefront_pmj02_sampler(cbox):
     leaf; the refill's lane select must pass it through instead of masking
     it per-lane (which raised a broadcast error through the CLI path,
     where pt.json selects pmj02bn)."""
-    from akari_render_tpu.config import RenderTask
+    from akari_render.config import RenderTask
 
     task = RenderTask(method_type="pt", method=None,
                       sampler={"type": "pmj02bn", "seed": 0})
@@ -62,7 +63,7 @@ def test_wavefront_sharded_matches_single(cbox):
     """8-device persistent wavefront: every (pixel, sample) path is sampled
     with the same GLOBAL keying as single-chip, so the developed image
     matches to fp-accumulation tolerance (retirement order differs)."""
-    from akari_render_tpu.parallel.shard import (
+    from akari_render.parallel.shard import (
         make_mesh, render_pt_wavefront_sharded,
     )
 
@@ -79,8 +80,8 @@ def test_wavefront_fused_matches_sequential(cbox):
     accumulation order moves)."""
     import os
 
-    from akari_render_tpu.config import PTConfig
-    from akari_render_tpu.integrators.wavefront import render_pt_wavefront
+    from akari_render.config import PTConfig
+    from akari_render.integrators.wavefront import render_pt_wavefront
 
     cfg = PTConfig(spp=8, max_depth=6, rr_depth=3, spp_per_pass=8)
     img_seq, _ = render_pt_wavefront(cbox, cfg)

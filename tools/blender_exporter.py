@@ -5,7 +5,7 @@
 Reference: crates/akari_scenegraph/python/exporter.py (749 lines driving the
 `py_akari_import` C ABI). This adaptation keeps the same Cycles-subset node
 mapping and scene schema but exchanges data through the in-process Python
-import API (akari_render_tpu/api.py) with numpy `foreach_get` extraction —
+import API (akari_render/api.py) with numpy `foreach_get` extraction —
 no FFI, no raw DNA pointers (SURVEY.md §7.1 "exchange data via files/numpy").
 
 Only numpy + bpy are required inside Blender (no jax import).
@@ -20,14 +20,14 @@ from pathlib import Path
 import numpy as np
 
 # make the repo importable inside Blender's python
-_ROOT = os.environ.get("AKARI_TPU_ROOT") or str(Path(__file__).resolve().parent.parent)
+_ROOT = os.environ.get("AKARI_RENDER_ROOT") or str(Path(__file__).resolve().parent.parent)
 if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
 import bpy  # noqa: E402
 import bpy.types as T  # noqa: E402
 
-from akari_render_tpu.api import SceneImportApi  # noqa: E402
+from akari_render.api import SceneImportApi  # noqa: E402
 
 
 def _toposort(node_tree):
@@ -344,7 +344,7 @@ class SceneExporter:
                 obj.name, mesh, self.matrix_to_akari(obj.matrix_world), mats
             )
         path = self.api.write_scene(self.out_dir, compact=True)
-        print(f"akari-tpu export: wrote {path}")
+        print(f"akari export: wrote {path}")
 
 
 def main():

@@ -25,7 +25,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import make_test_scene as M  # noqa: E402
 
-from akari_render_tpu.scenegraph.write import SceneBuilder  # noqa: E402
+from akari_render.scenegraph.write import SceneBuilder  # noqa: E402
 
 
 def build(out_dir="scenes/blinds"):

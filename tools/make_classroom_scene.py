@@ -10,14 +10,13 @@ strips).
 """
 from __future__ import annotations
 
-import io
 import sys
 from pathlib import Path
 
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from akari_render_tpu.scenegraph.write import SceneBuilder  # noqa: E402
+from akari_render.scenegraph.write import SceneBuilder  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from make_test_scene import checker_diffuse, glass, principled, quad, uv_sphere  # noqa: E402
@@ -112,12 +111,10 @@ def chair_mesh(n):
 
 
 def _png_texture(b: SceneBuilder, name: str, rgb: np.ndarray):
-    from PIL import Image
+    from akari_render.core.image_io import encode_png
 
-    img = Image.fromarray((np.clip(rgb, 0, 1) * 255).astype(np.uint8))
-    buf = io.BytesIO()
-    img.save(buf, format="PNG")
-    view = b.add_array(f"tex.{name}", np.frombuffer(buf.getvalue(), np.uint8))
+    png = encode_png((np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+    view = b.add_array(f"tex.{name}", np.frombuffer(png, np.uint8))
     return {
         "data": view,
         "extension": "repeat",

@@ -29,7 +29,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from akari_render_tpu.scenegraph.write import SceneBuilder  # noqa: E402
+from akari_render.scenegraph.write import SceneBuilder  # noqa: E402
 from make_test_scene import glass, principled, quad  # noqa: E402
 
 

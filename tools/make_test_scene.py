@@ -8,14 +8,13 @@ area light. Gives the renderer a multi-kind, textured regression scene
 """
 from __future__ import annotations
 
-import io
 import sys
 from pathlib import Path
 
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from akari_render_tpu.scenegraph.write import SceneBuilder  # noqa: E402
+from akari_render.scenegraph.write import SceneBuilder  # noqa: E402
 
 
 def quad(builder, name, a, b, c, d):
@@ -151,16 +150,13 @@ def checker_diffuse(scale=6.0):
 
 def textured_principled(builder):
     """Back wall with a generated PNG image texture."""
-    from PIL import Image
+    from akari_render.core.image_io import encode_png
 
     # generate a simple gradient+stripes texture
     w = h = 64
     xx, yy = np.meshgrid(np.linspace(0, 1, w), np.linspace(0, 1, h))
     rgb = np.stack([xx, yy, ((xx * 6).astype(int) % 2) * 0.8 + 0.2], -1)
-    img = Image.fromarray((rgb * 255).astype(np.uint8))
-    buf = io.BytesIO()
-    img.save(buf, format="PNG")
-    data = np.frombuffer(buf.getvalue(), np.uint8)
+    data = np.frombuffer(encode_png((rgb * 255).astype(np.uint8)), np.uint8)
     view = builder.add_array("tex.stripes", data)
     nodes = {
         "tex": {
